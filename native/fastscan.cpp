@@ -1,6 +1,6 @@
 // fastscan — native single-pass FASTQ/FASTA scanners.
 //
-// TPU-native counterpart of the reference's C++ parsing stack
+// Columnar counterpart of the reference's C++ parsing stack
 // (/root/reference/src/io/fastq_loader.hpp get_next_record :389-490,
 // fasta_loader.hpp get_next_record :618+): where the reference walks
 // per-character iterators lazily, these scanners make ONE fused pass over a

@@ -28,7 +28,7 @@ sys.path.insert(0, str(HERE.parent))
 import oracle  # noqa: E402
 from test_io import py_parse_fastq  # noqa: E402
 
-from kmerind_tpu import DNA  # noqa: E402
+from kmerind_jax import DNA  # noqa: E402
 
 DATA = pathlib.Path("/root/reference/test/data")
 OUT = HERE / "golden"

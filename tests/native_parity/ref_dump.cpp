@@ -4,7 +4,7 @@
 // outputs so tests/test_ref_parity.py can bit-compare them against this
 // framework's implementations.
 //
-// This file is original test scaffolding written for kmerind_tpu; it only
+// This file is original test scaffolding written for kmerind_jax; it only
 // *includes* the read-only reference headers (never copies them).  The full
 // reference binaries cannot be built here (mxx/sparsehash/gtest submodules
 // are empty and there is no MPI), but the serial k-mer data model needs

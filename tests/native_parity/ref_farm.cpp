@@ -10,7 +10,7 @@
 //                                     (nBits+7)/8, seed) per window kmer
 //
 // Sequences are read from stdin, one per line.  Original test scaffolding
-// for kmerind_tpu; only *includes* the read-only reference sources.
+// for kmerind_jax; only *includes* the read-only reference sources.
 
 #include <cstdint>
 #include <cstdio>

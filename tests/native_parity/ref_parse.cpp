@@ -5,7 +5,7 @@
 // boundaries and per-window scores for tests/test_ref_parity.py to compare
 // against this framework's io/ and quality modules.
 //
-// Original test scaffolding for kmerind_tpu — includes the read-only
+// Original test scaffolding for kmerind_jax — includes the read-only
 // reference headers, copies nothing.
 //
 // Usage: ref_parse (fastq|fasta) <path>

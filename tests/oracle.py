@@ -1,7 +1,7 @@
 """Pure-Python reference oracle implementing kmerind's semantics.
 
 Deliberately slow and simple — arbitrary-precision ints, per-char loops —
-so that the vectorized TPU implementations can be validated against an
+so that the vectorized device implementations can be validated against an
 independent statement of the same semantics (the strategy the reference
 uses with its slow helper in
 /root/reference/src/common/test/kmer_reverse_helper.hpp).
@@ -13,7 +13,7 @@ from collections import Counter, defaultdict
 
 import numpy as np
 
-from kmerind_tpu.alphabets import Alphabet
+from kmerind_jax.alphabets import Alphabet
 
 
 def kmer_int(codes, bits: int) -> int:

@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from kmerind_tpu import alphabets as A
+from kmerind_jax import alphabets as A
 
 
 def test_dna_encoding():

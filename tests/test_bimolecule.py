@@ -9,9 +9,9 @@ from collections import Counter
 import numpy as np
 import pytest
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.index.api import BimoleculeCountIndex, CountIndex
-from kmerind_tpu.parallel.mesh import make_mesh
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.index.api import BimoleculeCountIndex, CountIndex
+from kmerind_jax.parallel.mesh import make_mesh
 
 import oracle
 from test_io import py_parse_fastq

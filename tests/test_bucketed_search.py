@@ -13,7 +13,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from kmerind_tpu.ops import sortops
+from kmerind_jax.ops import sortops
 
 
 def _rows_of(u64s):

@@ -11,8 +11,8 @@ import pathlib
 
 import pytest
 
-from kmerind_tpu.config import IndexConfig
-from kmerind_tpu.utils.checkpoint import load_index, save_index
+from kmerind_jax.config import IndexConfig
+from kmerind_jax.utils.checkpoint import load_index, save_index
 
 CONFIGS = [
     dict(index="count"),

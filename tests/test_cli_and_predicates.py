@@ -5,10 +5,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.bench.cli import main as cli_main
-from kmerind_tpu.index.api import CountIndex
-from kmerind_tpu.parallel.mesh import make_mesh
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.bench.cli import main as cli_main
+from kmerind_jax.index.api import CountIndex
+from kmerind_jax.parallel.mesh import make_mesh
 
 import oracle
 from test_io import py_parse_fastq
@@ -204,7 +204,7 @@ def test_save_load_roundtrip(ref_data_dir, tmp_path):
 
 
 def test_index_config_factory(ref_data_dir):
-    from kmerind_tpu.config import IndexConfig
+    from kmerind_jax.config import IndexConfig
     cfg = IndexConfig(k=15, index="count", devices=4)
     idx = cfg.make_index(mesh=make_mesh(4))
     idx.build(ref_data_dir / "test.small.fastq")
@@ -216,7 +216,7 @@ def test_index_config_factory(ref_data_dir):
 
 
 def test_packed_string_roundtrip():
-    from kmerind_tpu.utils.packed_string import (
+    from kmerind_jax.utils.packed_string import (
         pack_string, packed_nbytes, unpack_string)
     rng = np.random.default_rng(0)
     for bits in (2, 3, 4, 8):
@@ -229,7 +229,7 @@ def test_packed_string_roundtrip():
 
 
 def test_logging_levels(capsys):
-    from kmerind_tpu.utils import logging as klog
+    from kmerind_jax.utils import logging as klog
     klog.set_level("info")
     klog.log.info("hello-info")
     klog.log.debug("hidden-debug")
@@ -239,7 +239,7 @@ def test_logging_levels(capsys):
 
 
 def test_multihost_single_process(ref_data_dir):
-    from kmerind_tpu.parallel import multihost
+    from kmerind_jax.parallel import multihost
     assert multihost.initialize() is False  # no coordinator configured
     mesh = multihost.global_mesh()
     assert mesh.devices.size >= 1
@@ -249,13 +249,13 @@ def test_multihost_single_process(ref_data_dir):
 
 
 def test_micro_bench_runs():
-    from kmerind_tpu.bench.micro import main as micro_main
+    from kmerind_jax.bench.micro import main as micro_main
     res = micro_main(["--n", "65536", "--iters", "1"])
     assert any(r["op"] == "sort_rows" for r in res)
 
 
 def test_profiler_trace(tmp_path):
-    from kmerind_tpu.utils.profiling import annotate, trace
+    from kmerind_jax.utils.profiling import annotate, trace
     import jax.numpy as jnp
     import jax as _jax
     with trace(str(tmp_path / "tr")) as d:
@@ -267,7 +267,7 @@ def test_profiler_trace(tmp_path):
 
 def test_chunked_insert_matches_whole(ref_data_dir):
     """Streaming chunked ingestion produces the identical index."""
-    from kmerind_tpu.io import read_file
+    from kmerind_jax.io import read_file
     path = ref_data_dir / "test.medium.fastq"
     spec = KmerSpec(21, DNA)
     whole = CountIndex(spec, mesh=make_mesh(4)).build(path)
@@ -280,7 +280,7 @@ def test_chunked_insert_matches_whole(ref_data_dir):
 def test_chunk_boundary_no_recursion(ref_data_dir):
     """Regression: num_bases in (chunk, chunk + k - 2) used to recurse
     forever (padded chunks exceeded the re-chunk guard)."""
-    from kmerind_tpu.io import read_file
+    from kmerind_jax.io import read_file
     batch = read_file(ref_data_dir / "test.medium.fastq", DNA)  # 8400 bases
     spec = KmerSpec(21, DNA)
     idx = CountIndex(spec, mesh=make_mesh(2))
@@ -292,8 +292,8 @@ def test_chunk_boundary_no_recursion(ref_data_dir):
 
 def test_empty_batch_position_insert():
     """Regression: a partition with zero records must be a clean no-op."""
-    from kmerind_tpu.index.api import PositionIndex
-    from kmerind_tpu.io import parse_fastq
+    from kmerind_jax.index.api import PositionIndex
+    from kmerind_jax.io import parse_fastq
     empty = parse_fastq(np.zeros(0, np.uint8), DNA)
     idx = PositionIndex(KmerSpec(21, DNA), mesh=make_mesh(2), id_kind="short")
     idx.insert_batch(empty)
@@ -303,7 +303,7 @@ def test_empty_batch_position_insert():
 def test_file_id_in_position_ids(ref_data_dir):
     """Multi-file position builds carry the file id in bits 56-63 of every
     stored id (ShortSequenceKmerId file field)."""
-    from kmerind_tpu.index.api import PositionIndex
+    from kmerind_jax.index.api import PositionIndex
     idx = PositionIndex(KmerSpec(21, DNA), mesh=make_mesh(2), id_kind="short")
     idx.build_files([ref_data_dir / "test.small.fastq",
                      ref_data_dir / "test.small.fastq"])
@@ -315,7 +315,7 @@ def test_file_id_in_position_ids(ref_data_dir):
 
 
 def test_position_quality_save_load(ref_data_dir, tmp_path):
-    from kmerind_tpu.index.api import PositionQualityIndex
+    from kmerind_jax.index.api import PositionQualityIndex
     idx = PositionQualityIndex(KmerSpec(21, DNA), mesh=make_mesh(4),
                                id_kind="short")
     idx.build(ref_data_dir / "test.small.fastq")
@@ -327,7 +327,7 @@ def test_position_quality_save_load(ref_data_dir, tmp_path):
 
 
 def test_debruijn_save_load(ref_data_dir, tmp_path):
-    from kmerind_tpu.debruijn import DeBruijnGraph
+    from kmerind_jax.debruijn import DeBruijnGraph
     g = DeBruijnGraph(KmerSpec(21, DNA), mesh=make_mesh(4))
     g.build(ref_data_dir / "test.debruijn.small.fastq")
     want = g.to_dict()

@@ -5,9 +5,9 @@ test_de_bruijn_graph_construction.cpp)."""
 import numpy as np
 import pytest
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.debruijn import DeBruijnGraph
-from kmerind_tpu.parallel.mesh import make_mesh
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.debruijn import DeBruijnGraph
+from kmerind_jax.parallel.mesh import make_mesh
 
 import oracle
 from test_io import py_parse_fastq
@@ -25,7 +25,7 @@ def oracle_debruijn(seqs, k, canonical=True):
     (de_bruijn_node_trait.hpp:195-245): neighbor chars encode as DNA16
     nibbles from the RAW character ('N' -> 0xF = all four), one increment
     per set bit; canonical flip swaps sides and 4-bit-reverses each."""
-    from kmerind_tpu.alphabets import DNA16
+    from kmerind_jax.alphabets import DNA16
     nodes = {}
     for seq in seqs:
         codes = [int(c) for c in DNA.encode(seq)]
@@ -124,7 +124,7 @@ def test_debruijn_record_boundaries():
 def test_debruijn_chunked_insert(ref_data_dir):
     """Chunked streaming build must produce identical edge counters
     (regression: chunks need 1 base of left context)."""
-    from kmerind_tpu.io import read_file
+    from kmerind_jax.io import read_file
     path = ref_data_dir / "test.debruijn.small.fastq"
     spec = KmerSpec(K, DNA)
     whole = DeBruijnGraph(spec, mesh=make_mesh(2)).build(path)
@@ -158,7 +158,7 @@ def oracle_debruijn_quality(seqs, quals, k):
     count + the sum of windowed scores (exp2 of the summed log2 base
     probabilities, 0.0 when any base is 'incorrect' —
     quality_score_iterator.hpp:162-173)."""
-    from kmerind_tpu.quality import ILLUMINA18
+    from kmerind_jax.quality import ILLUMINA18
     lut = ILLUMINA18.decode_lut.astype(np.float64)
     f32_lowest = float(np.finfo(np.float32).min)
     lut32 = np.where(lut == np.finfo(np.float64).min, f32_lowest,
@@ -186,7 +186,7 @@ def oracle_debruijn_quality(seqs, quals, k):
 
 
 def test_quality_debruijn_vs_oracle(ref_data_dir):
-    from kmerind_tpu.debruijn import QualityDeBruijnGraph
+    from kmerind_jax.debruijn import QualityDeBruijnGraph
     path = ref_data_dir / "test.debruijn.small.fastq"
     spec = KmerSpec(K, DNA)
     g = QualityDeBruijnGraph(spec, mesh=make_mesh(4))
@@ -221,7 +221,7 @@ def test_quality_debruijn_vs_oracle(ref_data_dir):
 
 
 def test_quality_debruijn_save_load(ref_data_dir, tmp_path):
-    from kmerind_tpu.debruijn import QualityDeBruijnGraph
+    from kmerind_jax.debruijn import QualityDeBruijnGraph
     path = ref_data_dir / "test.debruijn.small.fastq"
     spec = KmerSpec(K, DNA)
     g = QualityDeBruijnGraph(spec, mesh=make_mesh(4)).build(path)

@@ -8,12 +8,12 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.index.api import CountIndex, PositionIndex
-from kmerind_tpu.io import read_file
-from kmerind_tpu.parallel.mesh import make_mesh
-from kmerind_tpu.parallel import distribute as dist
-from kmerind_tpu.parallel.mesh import SHARD_AXIS
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.index.api import CountIndex, PositionIndex
+from kmerind_jax.io import read_file
+from kmerind_jax.parallel.mesh import make_mesh
+from kmerind_jax.parallel import distribute as dist
+from kmerind_jax.parallel.mesh import SHARD_AXIS
 
 import oracle
 from test_io import py_parse_fastq
@@ -182,7 +182,7 @@ def test_sample_sort_global_order(p):
     """Distributed sample sort: concatenated shard outputs are globally
     sorted and a permutation of the valid inputs (mxx::sort /
     samplesort_buf semantics)."""
-    from kmerind_tpu.parallel.sample_sort import make_sample_sort_step
+    from kmerind_jax.parallel.sample_sort import make_sample_sort_step
 
     mesh = _mesh(p)
     n, w = 256, 2
@@ -304,9 +304,9 @@ def test_position_explicit_insert_and_predicates(ref_data_dir):
     (the generic Index::insert/count_if/find_if surface, kmer_index.hpp:
     157-201, applied to the multimap)."""
     import jax.numpy as jnp
-    from kmerind_tpu import DNA, KmerSpec
-    from kmerind_tpu.index.api import PositionIndex
-    from kmerind_tpu.parallel.mesh import make_mesh
+    from kmerind_jax import DNA, KmerSpec
+    from kmerind_jax.index.api import PositionIndex
+    from kmerind_jax.parallel.mesh import make_mesh
 
     spec = KmerSpec(9, DNA)
     idx = PositionIndex(spec, mesh=make_mesh(4))  # single-strand default

@@ -7,9 +7,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.io import batch_to_arrays, extract_tuples, read_file
-from kmerind_tpu.index import store as st
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.io import batch_to_arrays, extract_tuples, read_file
+from kmerind_jax.index import store as st
 
 import oracle
 from test_io import py_parse_fastq

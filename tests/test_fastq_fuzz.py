@@ -13,9 +13,9 @@ per-block parses equals the whole-file parse."""
 import numpy as np
 import pytest
 
-from kmerind_tpu import DNA
-from kmerind_tpu.io.fastq import find_record_start
-from kmerind_tpu.io.files import read_file, read_fastq_block
+from kmerind_jax import DNA
+from kmerind_jax.io.fastq import find_record_start
+from kmerind_jax.io.files import read_file, read_fastq_block
 
 QUAL_ADVERSARIAL = "@+"  # legal Phred chars that collide with markers
 
@@ -115,7 +115,7 @@ def test_record_start_exactly_on_block_boundary(tmp_path):
     exactly one block: the boundary finder scans from pos-1 so the
     preceding newline proves the line start (regression: records landing
     on boundaries were skipped by BOTH neighbors)."""
-    from kmerind_tpu.io.files import read_file, read_fastq_block
+    from kmerind_jax.io.files import read_file, read_fastq_block
 
     # fixed-size records (26 bytes each: 6+9+2+9) so block boundaries
     # land exactly on record starts whenever nblocks divides total evenly
@@ -144,9 +144,9 @@ def test_fuzz_streaming_tiny_blocks(tmp_path):
     """Randomized streamed-vs-whole equality at block sizes SMALLER than
     a record (regression: the boundary off-by-one surfaced only when many
     boundaries fell inside/at records)."""
-    from kmerind_tpu.index.api import CountIndex, PositionIndex
-    from kmerind_tpu.parallel.mesh import make_mesh
-    from kmerind_tpu import KmerSpec
+    from kmerind_jax.index.api import CountIndex, PositionIndex
+    from kmerind_jax.parallel.mesh import make_mesh
+    from kmerind_jax import KmerSpec
 
     rng = np.random.default_rng(7474)
     path = tmp_path / "tiny.fastq"

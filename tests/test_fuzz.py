@@ -6,10 +6,10 @@ top of the per-component suites."""
 import numpy as np
 import pytest
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.index.api import CountIndex, PositionIndex
-from kmerind_tpu.io import parse_fastq, read_file
-from kmerind_tpu.parallel.mesh import make_mesh
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.index.api import CountIndex, PositionIndex
+from kmerind_jax.io import parse_fastq, read_file
+from kmerind_jax.parallel.mesh import make_mesh
 
 import oracle
 from test_io import py_parse_fastq
@@ -64,7 +64,7 @@ def test_fuzz_count_index(tmp_path, seed, opts):
 def test_fuzz_block_reads(tmp_path, seed):
     """Block-partitioned reads of a messy corpus agree with the whole-file
     parse for every partition count."""
-    from kmerind_tpu.io import read_fastq_block
+    from kmerind_jax.io import read_fastq_block
 
     rng = np.random.default_rng(seed + 100)
     text = _random_fastq(rng, 40, tricky_quals=True)

@@ -15,10 +15,10 @@ import pathlib
 import numpy as np
 import pytest
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.index.api import CountIndex, PositionIndex
-from kmerind_tpu.index.sorted_api import SortedCountIndex
-from kmerind_tpu.parallel.mesh import make_mesh
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.index.api import CountIndex, PositionIndex
+from kmerind_jax.index.sorted_api import SortedCountIndex
+from kmerind_jax.parallel.mesh import make_mesh
 
 GOLDEN = pathlib.Path(__file__).resolve().parent / "golden"
 

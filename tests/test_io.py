@@ -5,8 +5,8 @@ mpi_test_file_load / mpi_test_fastq_seq_parse)."""
 import numpy as np
 import pytest
 
-from kmerind_tpu import DNA, DNA16
-from kmerind_tpu.io import (
+from kmerind_jax import DNA, DNA16
+from kmerind_jax.io import (
     block_partition,
     find_record_start,
     parse_fastq,
@@ -252,7 +252,7 @@ def test_block_partition_properties():
 
 
 def test_cyclic_partition():
-    from kmerind_tpu.io.files import cyclic_partition
+    from kmerind_jax.io.files import cyclic_partition
     spans = {p: cyclic_partition(100, 3, p, 10) for p in range(3)}
     allspans = sorted(sp for l in spans.values() for sp in l)
     assert allspans[0][0] == 0 and allspans[-1][1] == 100
@@ -264,7 +264,7 @@ def test_cyclic_partition():
 def test_drop_records_with_invalid(ref_data_dir):
     """SequenceNPredicate: reads containing N are dropped under strict DNA
     (filtered_sequence_iterator.hpp:151)."""
-    from kmerind_tpu.io.filters import (
+    from kmerind_jax.io.filters import (
         drop_records_with_invalid, records_with_invalid)
     path = ref_data_dir / "natural.withN.fastq"
     data = np.fromfile(path, np.uint8)
@@ -305,7 +305,7 @@ def test_fasta_block_record_starts_union(ref_data_dir):
     """Per-block O(block) record-start scans must union to the whole-file
     header table for every partition count (the per-rank half of the
     reference's distributed header scan, fasta_loader.hpp:202-360)."""
-    from kmerind_tpu.io.files import (
+    from kmerind_jax.io.files import (
         block_partition as bp, fasta_block_record_starts, fasta_header_table,
         file_size)
 
@@ -325,7 +325,7 @@ def test_fasta_block_with_explicit_context(ref_data_dir):
     """read_fasta_block(context=...) — the multi-host path where leading
     record context comes from the distributed exchange instead of the
     whole-file header table — must match the default path exactly."""
-    from kmerind_tpu.io.files import (
+    from kmerind_jax.io.files import (
         block_partition as bp, fasta_block_record_starts, fasta_header_table,
         file_size)
 
@@ -363,9 +363,9 @@ def test_split_records_at_invalid(ref_data_dir):
     """SplitSequencesIterator semantics: reads containing N split into
     parts at each N; k-mers never span an N and parts shorter than k
     contribute nothing (filtered_sequence_iterator.hpp:168-247)."""
-    from kmerind_tpu.io.filters import split_records_at_invalid
-    from kmerind_tpu.index.api import CountIndex
-    from kmerind_tpu import KmerSpec
+    from kmerind_jax.io.filters import split_records_at_invalid
+    from kmerind_jax.index.api import CountIndex
+    from kmerind_jax import KmerSpec
     import oracle
 
     path = ref_data_dir / "natural.withN.fastq"

@@ -13,10 +13,10 @@ suite stays fast; 100M+-scale runs are the bench/CLI path on hardware."""
 
 import numpy as np
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.index.api import CountIndex
-from kmerind_tpu.io.batch import ReadBatch
-from kmerind_tpu.parallel.mesh import make_mesh
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.index.api import CountIndex
+from kmerind_jax.io.batch import ReadBatch
+from kmerind_jax.parallel.mesh import make_mesh
 
 K = 21
 N_BASES = 12_000_000

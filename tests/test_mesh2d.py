@@ -10,11 +10,11 @@ topology-aware without any index-level changes."""
 import numpy as np
 import pytest
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.index.api import CountIndex, PositionIndex
-from kmerind_tpu.index.sorted_api import SortedCountIndex
-from kmerind_tpu.debruijn.graph import DeBruijnGraph
-from kmerind_tpu.parallel.mesh import (
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.index.api import CountIndex, PositionIndex
+from kmerind_jax.index.sorted_api import SortedCountIndex
+from kmerind_jax.debruijn.graph import DeBruijnGraph
+from kmerind_jax.parallel.mesh import (
     make_mesh, make_mesh_2d, axes_of, DCN_AXIS, ICI_AXIS)
 
 import oracle

@@ -4,9 +4,9 @@ LongSequenceKmerId, non-DNA alphabets, large-k multiword distributed builds."""
 import numpy as np
 import pytest
 
-from kmerind_tpu import DNA, DNA6, DNA16, KmerSpec
-from kmerind_tpu.index.api import CountIndex, PositionIndex
-from kmerind_tpu.parallel.mesh import make_mesh
+from kmerind_jax import DNA, DNA6, DNA16, KmerSpec
+from kmerind_jax.index.api import CountIndex, PositionIndex
+from kmerind_jax.parallel.mesh import make_mesh
 
 import oracle
 from test_io import py_parse_fasta, py_parse_fastq
@@ -95,7 +95,7 @@ def test_very_long_sequences_multiline(ref_data_dir):
 
 def test_rna_count_index():
     """RNA alphabet (U instead of T) through the full index."""
-    from kmerind_tpu import RNA
+    from kmerind_jax import RNA
     import tempfile, pathlib
     seqs = ["ACGUACGUACGUCCGGAAUU", "UUAACCGGUACGUACGUACG"]
     text = "".join(f"@r{i}\n{s}\n+\n{'I'*len(s)}\n" for i, s in enumerate(seqs))
@@ -111,8 +111,8 @@ def test_rna_count_index():
 def test_ascii_spec_extraction():
     """ASCII (8-bit identity) alphabet: 4 chars/word extraction."""
     import jax.numpy as jnp
-    from kmerind_tpu import ASCII
-    from kmerind_tpu.ops import packing
+    from kmerind_jax import ASCII
+    from kmerind_jax.ops import packing
     spec = KmerSpec(6, ASCII)
     assert spec.chars_per_word == 4 and spec.nwords == 2
     s = "HELLOWORLD"
@@ -144,7 +144,7 @@ def _transform_oracle(seqs, k, alphabet, transform):
 @pytest.mark.parametrize("transform", ["lex_greater", "xor_rev_comp"])
 @pytest.mark.parametrize("distribution", ["hash", "range"])
 def test_transform_presets_count(ref_data_dir, transform, distribution):
-    from kmerind_tpu.config import IndexConfig
+    from kmerind_jax.config import IndexConfig
     path = ref_data_dir / "test.small.fastq"
     idx = IndexConfig(k=21, index="count", strands=transform,
                       distribution=distribution).make_index()

@@ -51,7 +51,7 @@ def test_multiprocess_count_index(ref_data_dir, tmp_path, nproc, dpp):
     path = ref_data_dir / "test.small.fastq"
     res = _run_workers(nproc, dpp, path, "count", tmp_path)
     seqs = [r[1] for r in py_parse_fastq(path.read_text())]
-    from kmerind_tpu import DNA
+    from kmerind_jax import DNA
     expect = oracle.count_index(seqs, 21, DNA, canonical=True)
     got = {int(k): v for k, v in res["contents"].items()}
     assert got == dict(expect)
@@ -71,7 +71,7 @@ def test_multiprocess_count_index_2d_mesh(ref_data_dir, tmp_path):
     path = ref_data_dir / "test.small.fastq"
     res = _run_workers(2, 2, path, "count2d", tmp_path)
     seqs = [r[1] for r in py_parse_fastq(path.read_text())]
-    from kmerind_tpu import DNA
+    from kmerind_jax import DNA
     expect = oracle.count_index(seqs, 21, DNA, canonical=True)
     got = {int(k): v for k, v in res["contents"].items()}
     assert got == dict(expect)
@@ -90,7 +90,7 @@ def test_multiprocess_fasta_count_index(ref_data_dir, tmp_path):
     path = ref_data_dir / "test2.fasta"
     res = _run_workers(3, 1, path, "fasta_count", tmp_path)
     seqs = ["".join(r["seq"]) for r in py_parse_fasta(path.read_text())]
-    from kmerind_tpu import DNA
+    from kmerind_jax import DNA
     expect = oracle.count_index(seqs, 21, DNA, canonical=True)
     got = {int(k): v for k, v in res["contents"].items()}
     assert got == dict(expect)
@@ -101,7 +101,7 @@ def test_multiprocess_position_index(ref_data_dir, tmp_path):
     path = ref_data_dir / "test.small.fastq"
     res = _run_workers(2, 2, path, "position", tmp_path)
     k = 21
-    from kmerind_tpu import DNA
+    from kmerind_jax import DNA
     recs = py_parse_fastq(path.read_text())
     seqs_ids = []
     for hdr, seq, qual, rstart, sstart in recs:
@@ -121,7 +121,7 @@ def test_multiprocess_sorted_count_index(ref_data_dir, tmp_path):
     path = ref_data_dir / "test.small.fastq"
     res = _run_workers(2, 2, path, "sorted_count", tmp_path)
     seqs = [r[1] for r in py_parse_fastq(path.read_text())]
-    from kmerind_tpu import DNA
+    from kmerind_jax import DNA
     expect = oracle.count_index(seqs, 21, DNA, canonical=True)
     got = {int(k): v for k, v in res["contents"].items()}
     assert got == dict(expect)
@@ -136,8 +136,8 @@ def test_multiprocess_value_index(ref_data_dir, tmp_path):
     (min is order-independent, so contents are np-invariant)."""
     path = ref_data_dir / "test.small.fastq"
     res = _run_workers(2, 2, path, "value_min", tmp_path)
-    from kmerind_tpu import DNA, KmerSpec
-    from kmerind_tpu.index.value_api import KmerValueIndex
+    from kmerind_jax import DNA, KmerSpec
+    from kmerind_jax.index.value_api import KmerValueIndex
     idx = KmerValueIndex(KmerSpec(21, DNA), reduce="min", id_kind="short")
     idx.build(str(path))
     expect = {str(k): v for k, v in idx.to_dict().items()}
@@ -156,7 +156,7 @@ def test_multiprocess_streamed_build(ref_data_dir, tmp_path):
     path = ref_data_dir / "test.small.fastq"
     res = _run_workers(2, 2, path, "stream_count", tmp_path)
     seqs = [r[1] for r in py_parse_fastq(path.read_text())]
-    from kmerind_tpu import DNA
+    from kmerind_jax import DNA
     expect = oracle.count_index(seqs, 21, DNA, canonical=True)
     got = {int(k): v for k, v in res["contents"].items()}
     assert got == dict(expect)
@@ -176,7 +176,7 @@ def test_multiprocess_streamed_fasta_build(ref_data_dir, tmp_path):
     path = ref_data_dir / "test2.fasta"
     res = _run_workers(3, 1, path, "fasta_stream_count", tmp_path)
     seqs = ["".join(r["seq"]) for r in py_parse_fasta(path.read_text())]
-    from kmerind_tpu import DNA
+    from kmerind_jax import DNA
     expect = oracle.count_index(seqs, 21, DNA, canonical=True)
     got = {int(k): v for k, v in res["contents"].items()}
     assert got == dict(expect)
@@ -189,8 +189,8 @@ def test_multiprocess_debruijn(ref_data_dir, tmp_path):
     path = ref_data_dir / "test.small.fastq"
     res = _run_workers(2, 2, path, "debruijn", tmp_path)
     # single-process reference build (virtual 8-device mesh of this proc)
-    from kmerind_tpu import DNA, KmerSpec
-    from kmerind_tpu.debruijn import DeBruijnGraph
+    from kmerind_jax import DNA, KmerSpec
+    from kmerind_jax.debruijn import DeBruijnGraph
     g = DeBruijnGraph(KmerSpec(21, DNA), canonical=True)
     g.build(str(path))
     expect = {str(k): list(v) for k, v in g.to_dict().items()}
@@ -206,8 +206,8 @@ def test_multiprocess_debruijn_quality(ref_data_dir, tmp_path):
     map flavor under mpirun np=1..4 (CMakeLists.txt:851-910)."""
     path = ref_data_dir / "test.small.fastq"
     res = _run_workers(2, 2, path, "debruijn_quality", tmp_path)
-    from kmerind_tpu import DNA, KmerSpec
-    from kmerind_tpu.debruijn import QualityDeBruijnGraph
+    from kmerind_jax import DNA, KmerSpec
+    from kmerind_jax.debruijn import QualityDeBruijnGraph
     g = QualityDeBruijnGraph(KmerSpec(21, DNA), canonical=True)
     g.build(str(path))
     expect = g.to_dict()
@@ -228,8 +228,8 @@ def test_multiprocess_bimolecule(ref_data_dir, tmp_path):
     single-process build."""
     path = ref_data_dir / "test.small.fastq"
     res = _run_workers(2, 2, path, "bimol", tmp_path)
-    from kmerind_tpu import DNA, KmerSpec
-    from kmerind_tpu.index.api import BimoleculeCountIndex
+    from kmerind_jax import DNA, KmerSpec
+    from kmerind_jax.index.api import BimoleculeCountIndex
     idx = BimoleculeCountIndex(KmerSpec(21, DNA))
     idx.build(str(path))
     expect = {str(k): v for k, v in idx.to_dict().items()}

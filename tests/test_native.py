@@ -4,9 +4,9 @@ outputs on all fixtures (the native path is an accelerator, not a fork)."""
 import numpy as np
 import pytest
 
-from kmerind_tpu import DNA, DNA16
-from kmerind_tpu.io import native, parse_fasta, parse_fastq
-from kmerind_tpu.io.fastq import find_record_start as np_find
+from kmerind_jax import DNA, DNA16
+from kmerind_jax.io import native, parse_fasta, parse_fastq
+from kmerind_jax.io.fastq import find_record_start as np_find
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable")

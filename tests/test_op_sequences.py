@@ -10,9 +10,9 @@ trials)."""
 import numpy as np
 import pytest
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.index import CountIndex, SortedCountIndex
-from kmerind_tpu.parallel.mesh import make_mesh
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.index import CountIndex, SortedCountIndex
+from kmerind_jax.parallel.mesh import make_mesh
 
 
 def _canon_int(v: int, k: int, canonical: bool) -> int:
@@ -88,7 +88,7 @@ def test_multimap_op_sequences_match_oracle(seed, mcls):
     """Interleaved explicit-pair insert / erase / count / find / filter on
     the multimaps vs a dict-of-lists oracle (216 unseeded trials also ran
     clean out-of-band)."""
-    from kmerind_tpu.index import PositionIndex, SortedPositionIndex
+    from kmerind_jax.index import PositionIndex, SortedPositionIndex
     cls = PositionIndex if mcls == "hash" else SortedPositionIndex
     rng = np.random.default_rng(seed)
     k = int(rng.choice([5, 9, 16]))

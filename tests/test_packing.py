@@ -6,8 +6,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from kmerind_tpu import ASCII, DNA, DNA6, DNA16, DNA_IUPAC, KmerSpec
-from kmerind_tpu.ops import packing
+from kmerind_jax import ASCII, DNA, DNA6, DNA16, DNA_IUPAC, KmerSpec
+from kmerind_jax.ops import packing
 
 import oracle
 
@@ -101,20 +101,37 @@ def test_lex_less():
 @pytest.mark.parametrize("alpha,k", [
     (DNA, 21), (DNA, 16), (DNA, 63), (DNA16, 11), (DNA6, 9),
     (DNA_IUPAC, 11), (ASCII, 5)])
-def test_pallas_kernel_interpret_matches_xla(alpha, k):
-    """Fused Pallas extraction (interpret mode on CPU) == XLA path."""
-    from kmerind_tpu.ops.pallas_kernels import (
-        extract_canonical_pallas, pallas_supported)
+def test_extract_tuples_canonical_matches_oracle(alpha, k):
+    """io.kmer_parsers.extract_tuples (canonical) over three reads whose
+    total length is not a multiple of 128: stored words, strand flag and
+    window validity per window start equal tests/oracle.py."""
+    from kmerind_jax.io.kmer_parsers import DeviceBases, extract_tuples
     spec = KmerSpec(k, alpha)
-    assert pallas_supported(spec)
     rng = np.random.default_rng(k)
-    codes = rng.integers(0, alpha.size, size=1000).astype(np.uint8)
-    w_ref, rc_ref = packing.extract_canonical(jnp.asarray(codes), spec)
-    w_pl, rc_pl = extract_canonical_pallas(jnp.asarray(codes), spec,
-                                           interpret=True)
-    nv = 1000 - k + 1
-    np.testing.assert_array_equal(np.asarray(w_ref)[:nv], np.asarray(w_pl)[:nv])
-    np.testing.assert_array_equal(np.asarray(rc_ref)[:nv], np.asarray(rc_pl)[:nv])
+    lens = [300, 77, 623]
+    codes = rng.integers(0, alpha.size, size=sum(lens)).astype(np.uint8)
+    seg = np.repeat(np.arange(len(lens)), lens).astype(np.int32)
+    n = codes.shape[0]
+    bases = DeviceBases(
+        codes=jnp.asarray(codes), valid=jnp.ones(n, bool),
+        owned=jnp.ones(n, bool), seg_id=jnp.asarray(seg),
+        id_hi=jnp.zeros(n, jnp.uint32), id_lo=jnp.zeros(n, jnp.uint32),
+        qual=jnp.zeros(n, jnp.uint8))
+    tup = extract_tuples(bases, spec, canonical=True)
+    valid = np.asarray(tup.valid)
+    words = np.asarray(tup.words)
+    strand = np.asarray(tup.strand)
+    bits = alpha.bits_per_char
+    starts = np.cumsum([0] + lens)
+    want_valid = np.zeros(n, bool)
+    for s0, ln in zip(starts, lens):
+        want_valid[s0:s0 + ln - k + 1] = True
+    np.testing.assert_array_equal(valid, want_valid)
+    for i in np.flatnonzero(want_valid):
+        fwd = oracle.kmer_int(codes[i:i + k].tolist(), bits)
+        rc = oracle.revcomp_int(fwd, k, alpha)
+        assert spec.to_int(words[i]) == min(fwd, rc)
+        assert strand[i] == (rc < fwd)
 
 
 def test_xor_rev_comp_and_lex_greater():
@@ -132,7 +149,7 @@ def test_xor_rev_comp_and_lex_greater():
 
 
 def test_kmer_surface_ops():
-    from kmerind_tpu.ops import bitops
+    from kmerind_jax.ops import bitops
     spec = KmerSpec(21, DNA)
     words = jnp.asarray(np.stack([spec.from_string("ACGTACGTACGTACGTACGTA"),
                                   spec.from_string("TTTTACGTACGTACGTACGTA")]))
@@ -152,7 +169,7 @@ def test_kmer_surface_ops():
 
 
 def test_mix32_differs_from_murmur():
-    from kmerind_tpu.ops import hashing
+    from kmerind_jax.ops import hashing
     w = jnp.asarray(np.random.default_rng(0).integers(
         0, 1 << 31, size=(100, 2)).astype(np.uint32))
     a = np.asarray(hashing.murmur3_32(w))

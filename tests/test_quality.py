@@ -9,8 +9,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.quality import (
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.quality import (
     ILLUMINA15,
     ILLUMINA18,
     QualityCodec,
@@ -124,8 +124,8 @@ def test_window_quality_zero_prob_base():
 def test_position_quality_index_e2e(ref_data_dir):
     """PositionQualityIndex on the reference fixture: every stored pair must
     match (id, windowed quality) from the oracle."""
-    from kmerind_tpu.index.api import PositionQualityIndex
-    from kmerind_tpu.parallel.mesh import make_mesh
+    from kmerind_jax.index.api import PositionQualityIndex
+    from kmerind_jax.parallel.mesh import make_mesh
     from test_io import py_parse_fastq
 
     path = ref_data_dir / "test.small.fastq"
@@ -166,8 +166,8 @@ def test_position_quality_explicit_insert():
     """PositionQualityIndex.insert carries per-pair float quality through
     the distributed path (pair<IdType, float> payloads,
     kmer_index.hpp:406)."""
-    from kmerind_tpu.index.api import PositionQualityIndex
-    from kmerind_tpu.parallel.mesh import make_mesh
+    from kmerind_jax.index.api import PositionQualityIndex
+    from kmerind_jax.parallel.mesh import make_mesh
 
     spec = KmerSpec(9, DNA)
     idx = PositionQualityIndex(spec, mesh=make_mesh(2))

@@ -34,10 +34,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from kmerind_tpu import alphabets as al
-from kmerind_tpu.kmer import KmerSpec
-from kmerind_tpu.ops import bitops, hashing, packing
-from kmerind_tpu import quality
+from kmerind_jax import alphabets as al
+from kmerind_jax.kmer import KmerSpec
+from kmerind_jax.ops import bitops, hashing, packing
+from kmerind_jax import quality
 
 REF = pathlib.Path("/root/reference")
 HERE = pathlib.Path(__file__).resolve().parent
@@ -94,8 +94,8 @@ _MXX_STUB = """\
 // Minimal stub standing in for the (empty-submodule) mxx headers.  Only what
 // the reference's serial, USE_MPI-undefined code paths need; no MPI.  All
 // collectives are p=1 identities.
-#ifndef KMERIND_TPU_MXX_STUB_HPP
-#define KMERIND_TPU_MXX_STUB_HPP
+#ifndef KMERIND_MXX_STUB_HPP
+#define KMERIND_MXX_STUB_HPP
 #include <cstddef>
 #include <utility>
 #include <vector>
@@ -289,7 +289,7 @@ def ref_farm_output(tmp_path_factory) -> dict:
 def test_farmhash64_buffers_bit_exact(ref_farm_output):
     """Our u32-pair FarmHash64 == the compiled reference farmhash over
     every length 1..64 and four seeds (all three HashLen* branches)."""
-    from kmerind_tpu.ops import farmhash
+    from kmerind_jax.ops import farmhash
     assert len(ref_farm_output["bufs"]) == 64 * 4
     for length, seed, want in ref_farm_output["bufs"]:
         data = bytes((i * 167 + length * 13 + 5) & 0xFF
@@ -318,7 +318,7 @@ def test_farmhash64_kmer_bit_exact(ref_farm_output, tag):
     REFERENCE's kmer.getData() bytes — pins both the farmhash algorithm
     and the byte-stream reconstruction from the char-aligned word layout
     (incl. the 3-bit DNA6 case where the layouts differ)."""
-    from kmerind_tpu.ops import farmhash
+    from kmerind_jax.ops import farmhash
     ref = ref_farm_output["kmers"].get(tag)
     assert ref, f"reference produced no farm digests for {tag}"
     k, alph = _FARM_CONFIGS[tag]
@@ -457,7 +457,7 @@ def _our_records(fmt: str, path: pathlib.Path, engine: str):
     """(record_start, seq_global_offset, seq, qual) per record via this
     framework's parsers, using the identity (ASCII) alphabet so codes are
     the raw sequence bytes."""
-    from kmerind_tpu.io import files as iofiles
+    from kmerind_jax.io import files as iofiles
     batch = iofiles.read_file(str(path), al.ASCII, fmt=fmt, engine=engine)
     recs = []
     quals = []
@@ -481,7 +481,7 @@ def _our_records(fmt: str, path: pathlib.Path, engine: str):
 def test_fastq_parser_parity(ref_parse_exe, fixture, engine):
     path = REF / "test/data" / fixture
     if engine == "native":
-        from kmerind_tpu.io import native
+        from kmerind_jax.io import native
         if not native.available():
             pytest.skip("native scanner not built")
     ref, _ = _ref_records(ref_parse_exe, "fastq", path)
@@ -496,7 +496,7 @@ def test_fastq_parser_parity(ref_parse_exe, fixture, engine):
 def test_fasta_parser_parity(ref_parse_exe, fixture, engine):
     path = REF / "test/data" / fixture
     if engine == "native":
-        from kmerind_tpu.io import native
+        from kmerind_jax.io import native
         if not native.available():
             pytest.skip("native scanner not built")
     ref, _ = _ref_records(ref_parse_exe, "fasta", path)
@@ -528,7 +528,7 @@ def test_find_first_record_parity(ref_parse_exe, tmp_path, source):
     at the search start is NOT found unless the search starts at file start
     (it belongs to the left neighbor via the prefix shift); a block whose
     lines fit no marker pattern throws — ours returns len(data) there."""
-    from kmerind_tpu.io import fastq as iofastq
+    from kmerind_jax.io import fastq as iofastq
     if source == "adversarial":
         path = tmp_path / "adv.fastq"
         path.write_bytes(_adversarial_fastq())
@@ -596,7 +596,7 @@ INDEX_CONFIGS = [  # (ref tag, k, canonical)
 def test_count_index_contents_parity(ref_parse_exe, fixture, fmt):
     """CountIndex contents == counts built from the reference's own parser +
     Kmer + lex_less code, per (k, strand) config."""
-    from kmerind_tpu.index import CountIndex
+    from kmerind_jax.index import CountIndex
     path = REF / "test/data" / fixture
     counts, _ = _ref_index(ref_parse_exe, f"index_{fmt}", path)
     configs = list(INDEX_CONFIGS)
@@ -624,14 +624,14 @@ def test_position_tuples_parity(ref_parse_exe, fixture):
     """(kmer, ShortSequenceKmerId) tuples from our fused extraction ==
     the reference's zip pipeline, as multisets (bit-exact 64-bit ids)."""
     from collections import Counter
-    from kmerind_tpu.io import files as iofiles
-    from kmerind_tpu.io.kmer_parsers import batch_to_arrays, extract_tuples
+    from kmerind_jax.io import files as iofiles
+    from kmerind_jax.io.kmer_parsers import batch_to_arrays, extract_tuples
     path = REF / "test/data" / fixture
     _, ref_tuples = _ref_index(ref_parse_exe, "index_fastq", path)
     spec = KmerSpec(21, al.DNA)
     batch = iofiles.read_file(str(path), al.DNA, fmt="fastq")
     tup = extract_tuples(batch_to_arrays(batch, id_kind="short"), spec,
-                         canonical=False, backend="xla")
+                         canonical=False)
     valid = np.asarray(tup.valid)
     words = np.asarray(tup.words)[valid]
     ids = ((np.asarray(tup.id_hi)[valid].astype(np.uint64) << np.uint64(32))
@@ -649,10 +649,10 @@ def test_debruijn_edge_parity(ref_parse_exe, fixture):
     reference's own KmerGenerationIterator x edge_iterator<_, DNA16> zip
     (the exact chain de_bruijn_parser::operator() assembles)."""
     from collections import Counter
-    from kmerind_tpu.io import files as iofiles
-    from kmerind_tpu.io.kmer_parsers import batch_to_arrays
-    from kmerind_tpu.ops import packing
-    from kmerind_tpu.debruijn import edges as dedges
+    from kmerind_jax.io import files as iofiles
+    from kmerind_jax.io.kmer_parsers import batch_to_arrays
+    from kmerind_jax.ops import packing
+    from kmerind_jax.debruijn import edges as dedges
     path = REF / "test/data" / fixture
     out = subprocess.run([str(ref_parse_exe), "debruijn", str(path)],
                          check=True, capture_output=True, text=True).stdout
@@ -681,7 +681,7 @@ def test_debruijn_edge_parity(ref_parse_exe, fixture):
 
     # and through the full DeBruijnGraph (single-strand): node counters ==
     # per-bit accumulation of the reference's tuples
-    from kmerind_tpu.debruijn import DeBruijnGraph
+    from kmerind_jax.debruijn import DeBruijnGraph
     g = DeBruijnGraph(spec, canonical=False)
     g.build(str(path))
     want: dict[int, list[int]] = {}

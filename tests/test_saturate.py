@@ -5,38 +5,50 @@ The run store keeps RAW weights and clamps at every read surface; a
 clamped compaction is exact because saturation is monotone
 (min(min(a, s) + b, s) == min(a + b, s) for b >= 0).  These tests pin the
 clamp across build, query, items, histogram, predicate scans, compaction,
-checkpoint roundtrip, and the int32 overflow guard.
+checkpoint roundtrip, and the int32 overflow guard, on the seeded
+short-read corpus (tests/conftest.py) whose raw counts are checked against
+tests/oracle.py.
 """
 
 import numpy as np
+import oracle
 import pytest
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.index.api import CountIndex
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.index.api import CountIndex
 
 SPEC = KmerSpec(21, DNA)
 SAT = 3
-FQ = "/root/reference/test/data/test.small.fastq"
-# synthetic keys below/at saturation for clamp variety (file counts are
-# uniform); canonicalized on insert like any query
+# synthetic keys below/at saturation for clamp variety; canonicalized on
+# insert like any query
 EXTRA = [("A" * 21, 1), ("AC" * 10 + "A", 2), ("GT" * 10 + "G", 3)]
 
 
-def _build(idx: CountIndex) -> CountIndex:
-    idx.build(FQ)
+@pytest.fixture(scope="module")
+def fq(seeded_corpus):
+    return seeded_corpus.fastq
+
+
+def _build(idx: CountIndex, fq: str) -> CountIndex:
+    idx.build(fq)
     rows = np.stack([SPEC.from_string(s) for s, _ in EXTRA])
     idx.insert_counts(rows.astype(np.uint32), [c for _, c in EXTRA])
     return idx
 
 
 @pytest.fixture(scope="module")
-def raw_counts():
-    return _build(CountIndex(SPEC)).to_dict()
+def raw_counts(fq, seeded_corpus):
+    raw = _build(CountIndex(SPEC), fq).to_dict()
+    want = oracle.count_index(seeded_corpus.seqs, SPEC.k, DNA)
+    want.update(oracle.count_index([s for s, c in EXTRA for _ in range(c)],
+                                   SPEC.k, DNA))
+    assert raw == dict(want)
+    return raw
 
 
 @pytest.fixture()
-def sat_idx():
-    return _build(CountIndex(SPEC, saturate=SAT))
+def sat_idx(fq):
+    return _build(CountIndex(SPEC, saturate=SAT), fq)
 
 
 def _clamped(raw, s=SAT):
@@ -73,11 +85,11 @@ def test_saturate_histogram_and_scans(sat_idx, raw_counts):
         (k, c) for k, c in raw_counts.items() if c < SAT)
 
 
-def test_saturate_compact_is_exact(sat_idx, raw_counts):
+def test_saturate_compact_is_exact(sat_idx, raw_counts, fq):
     # a clamped compact rewrites raw weights; further inserts still clamp
     sat_idx.compact()
     assert sat_idx.to_dict() == _clamped(raw_counts)
-    _build(sat_idx)  # double every raw count AFTER the clamp
+    _build(sat_idx, fq)  # double every raw count AFTER the clamp
     assert sat_idx.to_dict() == {k: min(min(c, SAT) + c, SAT)
                                  for k, c in raw_counts.items()}
 
@@ -99,19 +111,19 @@ def test_saturate_checkpoint_roundtrip(tmp_path, sat_idx, raw_counts):
     assert back.to_dict() == _clamped(raw_counts)
 
 
-def test_overflow_guard_saturating(raw_counts):
+def test_overflow_guard_saturating(raw_counts, fq):
     """Pressure on a saturating map forces a clamped compact, not a wrap."""
-    idx = _build(CountIndex(SPEC, saturate=SAT))
+    idx = _build(CountIndex(SPEC, saturate=SAT), fq)
     idx._ingested_weight = idx._I32_WEIGHT_GUARD  # simulate a long stream
-    _build(idx)  # triggers _relieve_weight_pressure -> clamped compact
+    _build(idx, fq)  # triggers _relieve_weight_pressure -> clamped compact
     assert idx._ingested_weight < idx._I32_WEIGHT_GUARD
     assert idx.to_dict() == {k: min(min(c, SAT) + c, SAT)
                              for k, c in raw_counts.items()}
 
 
-def test_overflow_guard_plain_raises():
+def test_overflow_guard_plain_raises(fq):
     """A plain counting map raises before int32 prefix sums can wrap."""
-    idx = CountIndex(SPEC).build(FQ)
+    idx = CountIndex(SPEC).build(fq)
     rows, _ = idx.items()
     big = 1 << 29
     idx.insert_counts(rows[:2].astype(np.uint32), [big, big])  # fits

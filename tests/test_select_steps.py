@@ -11,10 +11,10 @@ host loop would be visibly wrong to ship (>= 1M rows per store).
 import numpy as np
 import pytest
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.index.api import BimoleculeCountIndex, PositionIndex
-from kmerind_tpu.index.sorted_api import SortedCountIndex
-from kmerind_tpu.index.value_api import KmerValueIndex
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.index.api import BimoleculeCountIndex, PositionIndex
+from kmerind_jax.index.sorted_api import SortedCountIndex
+from kmerind_jax.index.value_api import KmerValueIndex
 
 SPEC = KmerSpec(21, DNA)
 M = 1 << 20  # 1M rows
@@ -122,7 +122,7 @@ def test_lookup_join_crossover_parity(kmer_rows):
     path (small m) and the gather-free join path (m*8 >= cap) — the
     round-4 crossover routing (lookup_join_vals / lookup_join_ranges)."""
     import jax.numpy as jnp
-    from kmerind_tpu.index import store as st
+    from kmerind_jax.index import store as st
 
     cap = 1 << 15
     rng = np.random.default_rng(11)

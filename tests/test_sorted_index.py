@@ -9,11 +9,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.index.api import CountIndex, PositionIndex
-from kmerind_tpu.index.sorted_api import (
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.index.api import CountIndex, PositionIndex
+from kmerind_jax.index.sorted_api import (
     SortedCountIndex, SortedPositionIndex, SortedPositionQualityIndex)
-from kmerind_tpu.parallel.mesh import make_mesh
+from kmerind_jax.parallel.mesh import make_mesh
 
 import oracle
 from test_io import py_parse_fastq

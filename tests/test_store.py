@@ -6,7 +6,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from kmerind_tpu.index import store as st
+from kmerind_jax.index import store as st
 
 
 def _mk_words(vals, w=2):
@@ -164,7 +164,7 @@ def test_multiword_key_ordering():
 
 
 def test_lookup_join_matches_binary_search():
-    from kmerind_tpu.ops import sortops
+    from kmerind_jax.ops import sortops
     rng = np.random.default_rng(0)
     keys = rng.integers(0, 500, size=300)
     s = st.empty_count_store(512, 2)
@@ -192,7 +192,7 @@ def test_lookup_join_fullword_sentinel_key():
     (sentinel-unsafe specs like k=16 DNA poly-T), store padding rows share
     its bit pattern; the join path must still return the live row's count,
     not the padding rows' zero."""
-    from kmerind_tpu.ops import sortops
+    from kmerind_jax.ops import sortops
     w = 1
     s = st.empty_count_store(32, w)
     poly_t = _mk_words([0xFFFFFFFF], w=w)  # all-ones == sentinel pattern
@@ -213,9 +213,9 @@ def test_lookup_join_fullword_sentinel_key():
 def test_fullword_polyT_end_to_end():
     """k=16 DNA: poly-T k-mer stored twice must be countable on both the
     small-batch (binary search) and large-batch (sort-merge join) paths."""
-    from kmerind_tpu.index.api import CountIndex
-    from kmerind_tpu.kmer import KmerSpec
-    from kmerind_tpu import alphabets
+    from kmerind_jax.index.api import CountIndex
+    from kmerind_jax.kmer import KmerSpec
+    from kmerind_jax import alphabets
 
     spec = KmerSpec(16, alphabets.DNA)
     assert not spec.sentinel_safe
@@ -232,9 +232,9 @@ def test_fullword_polyT_end_to_end():
 def test_clear_preserves_sentinel_invariant():
     """Regression (ADVICE r1): clear() must reset keys to the sentinel so
     lookup_join on a cleared store cannot match the all-zero key."""
-    from kmerind_tpu.index.api import CountIndex
-    from kmerind_tpu.kmer import KmerSpec
-    from kmerind_tpu import alphabets
+    from kmerind_jax.index.api import CountIndex
+    from kmerind_jax.kmer import KmerSpec
+    from kmerind_jax import alphabets
 
     spec = KmerSpec(15, alphabets.DNA)
     idx = CountIndex(spec, canonical=False, initial_capacity=64)
@@ -252,7 +252,7 @@ def test_clear_preserves_sentinel_invariant():
 def test_run_length_counts_matches_unique_counts():
     """The scan-based in-place run-length reduction must carry the same
     (key, count) multiset as the compacting unique_counts."""
-    from kmerind_tpu.ops import sortops
+    from kmerind_jax.ops import sortops
     rng = np.random.default_rng(3)
     for n, hi in [(64, 8), (512, 40), (4096, 10)]:
         keys = rng.integers(0, hi, size=n)

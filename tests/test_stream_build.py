@@ -11,13 +11,10 @@ stream through the zero-copy parser ring while the device consumes."""
 import numpy as np
 import pytest
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.debruijn import DeBruijnGraph
-from kmerind_tpu.index.api import CountIndex, PositionIndex
-from kmerind_tpu.index.sorted_api import SortedCountIndex
-
-REF = "/root/reference/test/data"
-
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.debruijn import DeBruijnGraph
+from kmerind_jax.index.api import CountIndex, PositionIndex
+from kmerind_jax.index.sorted_api import SortedCountIndex
 
 def _write_corpus(tmp_path, fmt, n_records=300, seed=7):
     """Synthetic corpus big enough for several blocks at tiny block_bytes."""
@@ -65,7 +62,7 @@ def test_stream_sorted_index(tmp_path):
 
 
 def test_stream_sorted_position_index(tmp_path):
-    from kmerind_tpu.index.sorted_api import SortedPositionIndex
+    from kmerind_jax.index.sorted_api import SortedPositionIndex
     path = _write_corpus(tmp_path, "fastq", n_records=120)
     spec = KmerSpec(15, DNA)
     whole = SortedPositionIndex(spec).build(path)
@@ -75,7 +72,7 @@ def test_stream_sorted_position_index(tmp_path):
 
 
 def test_stream_bimolecule(tmp_path):
-    from kmerind_tpu.index.api import BimoleculeCountIndex
+    from kmerind_jax.index.api import BimoleculeCountIndex
     path = _write_corpus(tmp_path, "fastq", n_records=120)
     spec = KmerSpec(21, DNA)
     whole = BimoleculeCountIndex(spec).build(path)
@@ -84,7 +81,7 @@ def test_stream_bimolecule(tmp_path):
 
 
 def test_stream_position_quality(tmp_path):
-    from kmerind_tpu.index.api import PositionQualityIndex
+    from kmerind_jax.index.api import PositionQualityIndex
     path = _write_corpus(tmp_path, "fastq", n_records=120)
     spec = KmerSpec(15, DNA)
     whole = PositionQualityIndex(spec).build(path)
@@ -130,9 +127,16 @@ def test_stream_debruijn_fasta_long_genome(tmp_path):
     assert streamed.to_dict() == whole.to_dict()
 
 
-def test_stream_on_reference_fixture():
+def test_stream_on_reference_fixture(seeded_corpus):
+    """The seeded 300 kbp three-record FASTA, streamed in 100 kB blocks:
+    equal to the whole-file build and to the numpy count."""
+    from kmerind_jax.bench import synth
     spec = KmerSpec(21, DNA)
-    whole = CountIndex(spec).build(f"{REF}/test.medium.fasta")
-    streamed = CountIndex(spec).build_stream(
-        f"{REF}/test.medium.fasta", block_bytes=100_000)
+    path = seeded_corpus.fasta
+    whole = CountIndex(spec).build(path)
+    streamed = CountIndex(spec).build_stream(path, block_bytes=100_000)
     assert streamed.to_dict() == whole.to_dict()
+    uniq, counts = np.unique(np.concatenate([
+        synth.canonical_kmers(c[None, :], spec.k)[0][0]
+        for c in seeded_corpus.fasta_codes]), return_counts=True)
+    assert whole.to_dict() == dict(zip(uniq.tolist(), counts.tolist()))

@@ -10,9 +10,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from kmerind_tpu import DNA, KmerSpec
-from kmerind_tpu.index.value_api import KmerValueIndex, SortedKmerValueIndex
-from kmerind_tpu.parallel.mesh import make_mesh
+from kmerind_jax import DNA, KmerSpec
+from kmerind_jax.index.value_api import KmerValueIndex, SortedKmerValueIndex
+from kmerind_jax.parallel.mesh import make_mesh
 
 import oracle
 from test_io import py_parse_fastq
@@ -130,7 +130,7 @@ def test_save_load_roundtrip(tmp_path, cls):
 
 def test_canonical_value_map():
     """Canonical preset: both strands answer the same entry."""
-    from kmerind_tpu.ops import bitops
+    from kmerind_jax.ops import bitops
     idx = KmerValueIndex(SPEC, canonical=True, reduce="min")
     w = _words([12345])
     rc = np.asarray(bitops.revcomp(jnp.asarray(w), SPEC))
@@ -140,7 +140,7 @@ def test_canonical_value_map():
 
 
 def test_config_makes_value_index():
-    from kmerind_tpu.config import IndexConfig
+    from kmerind_jax.config import IndexConfig
     idx = IndexConfig(k=15, index="value", reduce="min").make_index()
     assert isinstance(idx, KmerValueIndex)
     idx2 = IndexConfig(k=15, index="value",
